@@ -2,22 +2,23 @@
 """BASELINE config 1: Cornell-style spheres-only scene, direct lighting,
 diffuse BRDF, 256x256 @ 16spp."""
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(_HERE), _HERE]
 
 import numpy as np
 from _common import report, setup_jax, small, timed_render
 
 jax = setup_jax()
 
-from sycl_ray_tracing_tpu.models import pathtracer
-from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-from sycl_ray_tracing_tpu.models.scene import add_sphere, make_materials, make_scene
-from sycl_ray_tracing_tpu.ops.tonemap import tonemap
-from sycl_ray_tracing_tpu.utils.config import RenderConfig
-from sycl_ray_tracing_tpu.utils.png import write_png
+from sycl_ray_tracing.models import pathtracer
+from sycl_ray_tracing.models.camera import cornell_box_camera
+from sycl_ray_tracing.models.scene import add_sphere, make_materials, make_scene
+from sycl_ray_tracing.ops.tonemap import tonemap
+from sycl_ray_tracing.utils.config import RenderConfig
+from sycl_ray_tracing.utils.png import write_png
 
 
 def build_scene():
@@ -55,8 +56,8 @@ def main():
     cfg = RenderConfig(width=size, height=size, samples=spp, bounces=1,
                       tile_rays=None)
     scene = build_scene()
-    from sycl_ray_tracing_tpu.ops import transform as T
-    from sycl_ray_tracing_tpu.models.camera import Camera
+    from sycl_ray_tracing.ops import transform as T
+    from sycl_ray_tracing.models.camera import Camera
 
     cam = Camera.create(45.0, T.compose(T.rotation_x(-20.0),
                                         T.translation(0.0, 0.2, 6.0)))

@@ -2,22 +2,23 @@
 """BASELINE config 3: dragon (stand-in), Cook-Torrance roughness/metallic
 with BRDF importance sampling + MIS, 720p @ 128spp."""
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(_HERE), _HERE]
 
 import numpy as np
 from _common import report, setup_jax, small, timed_render
 
 jax = setup_jax()
 
-from sycl_ray_tracing_tpu.models import pathtracer
-from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera
-from sycl_ray_tracing_tpu.ops.tonemap import tonemap
-from sycl_ray_tracing_tpu.utils.config import RenderConfig
-from sycl_ray_tracing_tpu.utils.procedural import dragon_scene
-from sycl_ray_tracing_tpu.utils.png import write_png
+from sycl_ray_tracing.models import pathtracer
+from sycl_ray_tracing.models.camera import pbrt_dragon_camera
+from sycl_ray_tracing.ops.tonemap import tonemap
+from sycl_ray_tracing.utils.config import RenderConfig
+from sycl_ray_tracing.utils.procedural import dragon_scene
+from sycl_ray_tracing.utils.png import write_png
 
 
 def main():
@@ -25,10 +26,8 @@ def main():
         w, h, spp, tris = 128, 72, 2, 20_000
     else:
         w, h, spp, tris = 1280, 720, 128, 200_000
-    # intersect="list": the Pallas per-ray list tracer with dead-path
-    # bucketing — ~3.3x the XLA cluster tracer on this scene (round 2)
     cfg = RenderConfig(width=w, height=h, samples=spp, bounces=4,
-                       tile_rays=32768, intersect="list")
+                       tile_rays=32768)
     scene = dragon_scene(n_tris=tris, with_sky=False)
     cam = pbrt_dragon_camera()
     f = jax.jit(lambda s, c, k: pathtracer.render(s, c, cfg, k))

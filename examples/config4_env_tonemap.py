@@ -2,23 +2,24 @@
 """BASELINE config 4: HDR env-map lighting with env importance sampling +
 tone mapping, dragon @ 1080p 256spp."""
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(_HERE), _HERE]
 
 import numpy as np
 from _common import report, setup_jax, small, timed_render
 
 jax = setup_jax()
 
-from sycl_ray_tracing_tpu.models import pathtracer
-from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera
-from sycl_ray_tracing_tpu.ops.tonemap import tonemap
-from sycl_ray_tracing_tpu.utils.config import RenderConfig
-from sycl_ray_tracing_tpu.utils.procedural import dragon_scene
-from sycl_ray_tracing_tpu.utils.png import write_png
-from sycl_ray_tracing_tpu.utils.hdr import write_hdr
+from sycl_ray_tracing.models import pathtracer
+from sycl_ray_tracing.models.camera import pbrt_dragon_camera
+from sycl_ray_tracing.ops.tonemap import tonemap
+from sycl_ray_tracing.utils.config import RenderConfig
+from sycl_ray_tracing.utils.procedural import dragon_scene
+from sycl_ray_tracing.utils.png import write_png
+from sycl_ray_tracing.utils.hdr import write_hdr
 
 
 def main():

@@ -1,20 +1,20 @@
 #!/usr/bin/env python
 """BASELINE config 5: differentiable inverse rendering — optimize material
 parameters against a target render, sharded across the device mesh with
-psum'd gradients.  (On the multi-host pod this same script scales via
+mean-reduced gradients.  (Across hosts the same script scales via
 parallel.distributed.initialize; here it runs on whatever devices exist.)
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(_HERE), _HERE]
 
 from _common import setup_jax, small
 
 jax = setup_jax()
 
-sys.path.insert(0, "/root/repo")
 import train  # the repo's inverse-rendering driver
 
 

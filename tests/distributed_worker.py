@@ -28,7 +28,7 @@ def main():
 
     import numpy as np
 
-    from sycl_ray_tracing_tpu.parallel import distributed
+    from sycl_ray_tracing.parallel import distributed
 
     # the real multi-process bring-up path (SURVEY §5 distributed backend):
     # DCN-style coordination over localhost gRPC
@@ -38,17 +38,18 @@ def main():
     assert len(jax.devices()) == 4 * nprocs
     assert distributed.is_coordinator() == (pid == 0)
 
-    from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-    from sycl_ray_tracing_tpu.parallel.render import render_sharded
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
-    from sycl_ray_tracing_tpu.utils.obj_loader import load_scene
+    from sycl_ray_tracing.models.camera import cornell_box_camera
+    from sycl_ray_tracing.parallel.render import render_sharded
+    from sycl_ray_tracing.utils.config import RenderConfig
+    from sycl_ray_tracing.utils.obj_loader import load_scene
 
     mesh = distributed.global_mesh(sample_axis=2)
     assert mesh.devices.shape == (2 * nprocs, 2)
 
     cfg = RenderConfig(width=32, height=32, samples=4, bounces=3,
                        intersect="brute")
-    scene = load_scene("/root/reference/data/OBJs/cornell_pbr.obj")
+    scene = load_scene(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data", "cornell_box.obj"))
     img = render_sharded(scene, cornell_box_camera(), cfg,
                          jax.random.PRNGKey(3), mesh)
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sycl_ray_tracing_tpu.ops.brdf import (
+from sycl_ray_tracing.ops.brdf import (
     cook_torrance_eval,
     cook_torrance_pdf,
     ggx_importance_sample,

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 
 from tests.conftest import CORNELL_OBJ
-from sycl_ray_tracing_tpu.ops.bvh import build_bvh, closest_prim, intersect_bvh
-from sycl_ray_tracing_tpu.ops.intersect import BIG_T, intersect_triangles
-from sycl_ray_tracing_tpu.utils.obj_loader import parse_obj
+from sycl_ray_tracing.ops.bvh import build_bvh, closest_prim, intersect_bvh
+from sycl_ray_tracing.ops.intersect import BIG_T, intersect_triangles
+from sycl_ray_tracing.utils.obj_loader import parse_obj
 
 
 def _random_rays(n, rng, lo=-2.0, hi=2.0):
@@ -146,7 +146,7 @@ def test_any_hit_matches_oracle():
     o, d = _random_rays(256, rng)
     bvh = build_bvh(np.asarray(tris))
     oracle = intersect_triangles(o, d, tris)
-    from sycl_ray_tracing_tpu.ops.bvh import any_hit
+    from sycl_ray_tracing.ops.bvh import any_hit
 
     for tmax_val in (0.5, 2.0, 1e30):
         t_max = jnp.full((256,), tmax_val, jnp.float32)
@@ -158,7 +158,7 @@ def test_any_hit_matches_oracle():
 def test_native_sah_builder_agrees():
     """C++ binned-SAH build produces identical intersection results to both
     the numpy Morton build and the brute-force oracle."""
-    from sycl_ray_tracing_tpu import native
+    from sycl_ray_tracing import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -184,7 +184,7 @@ def test_native_sah_builder_agrees():
 
 def test_native_obj_parser_agrees():
     """C++ OBJ geometry parser matches the python parser on cornell."""
-    from sycl_ray_tracing_tpu import native
+    from sycl_ray_tracing import native
 
     if not native.available():
         pytest.skip("native library not built")

@@ -5,14 +5,14 @@ import numpy as np
 import pytest
 
 from tests.conftest import CORNELL_OBJ
-from sycl_ray_tracing_tpu.ops.cluster import (
+from sycl_ray_tracing.ops.cluster import (
     any_hit,
     build_clusters,
     closest_hit,
     intersect_clusters,
 )
-from sycl_ray_tracing_tpu.ops.intersect import BIG_T, intersect_triangles
-from sycl_ray_tracing_tpu.utils.obj_loader import parse_obj
+from sycl_ray_tracing.ops.intersect import BIG_T, intersect_triangles
+from sycl_ray_tracing.utils.obj_loader import parse_obj
 
 
 def _random_rays(n, rng, lo=-2.0, hi=2.0):
@@ -129,11 +129,11 @@ def test_intersect_clusters_hit_record():
 
 def test_sah_order_build():
     """Clustering by the SAH builder's slot order also agrees."""
-    from sycl_ray_tracing_tpu import native
+    from sycl_ray_tracing import native
 
     if not native.available():
         pytest.skip("native library not built")
-    from sycl_ray_tracing_tpu.ops.bvh import build_bvh
+    from sycl_ray_tracing.ops.bvh import build_bvh
 
     rng = np.random.default_rng(31)
     centers = rng.uniform(-5, 5, (3000, 1, 3)).astype(np.float32)
@@ -221,7 +221,7 @@ def test_deep_corridor_correct():
 def test_fanout_path_matches_oracle_on_mesh():
     """The bounded-fanout fast path agrees with the oracle on a mesh-like
     scene (low children-per-supercluster density)."""
-    from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
+    from sycl_ray_tracing.utils.procedural import dragon_standin
 
     tris_np = dragon_standin(20_000)
     tris = jnp.asarray(tris_np)
@@ -245,11 +245,11 @@ def test_hier_candidates_match_dense_when_no_sc_overflow():
     granular) entry-t order, same overflow verdict."""
     import jax.numpy as jnp
 
-    from sycl_ray_tracing_tpu.ops.cluster import (
+    from sycl_ray_tracing.ops.cluster import (
         candidate_clusters,
         candidate_clusters_hier,
     )
-    from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
+    from sycl_ray_tracing.utils.procedural import dragon_standin
 
     tris = dragon_standin(150_000)
     cs = build_clusters(tris)
@@ -279,15 +279,14 @@ def test_hier_candidates_match_dense_when_no_sc_overflow():
 
 
 def test_topk_extraction_matches_minrounds():
-    """The approx_min_k extraction path (one fused TPU PartialReduce pass)
-    must match threshold-min extraction EXACTLY on CPU (exact fallback):
+    """The approx_min_k extraction path (one fused top-k pass) must match threshold-min extraction EXACTLY on CPU (exact fallback):
     same ids in the same nearest-first order, same entry-ts, same overflow.
     Covers the subnormal-key hazard (quantized entry-t == 0 packs to a
     subnormal float; the +2^23 key bias keeps float order == int order)."""
     import jax.numpy as jnp
 
-    from sycl_ray_tracing_tpu.ops import cluster as C
-    from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
+    from sycl_ray_tracing.ops import cluster as C
+    from sycl_ray_tracing.utils.procedural import dragon_standin
 
     tris = dragon_standin(50_000)
     cs = C.build_clusters(tris)
@@ -337,7 +336,7 @@ def test_membership_certificate_matches_set_oracle():
     ids (exact extraction).  Overlapping random soup + tiny maxc forces
     full unions, so both covered=True-in-a-full-block (the new
     certificates) and covered=False (genuinely dropped clusters) occur."""
-    from sycl_ray_tracing_tpu.ops import cluster as C
+    from sycl_ray_tracing.ops import cluster as C
 
     rng = np.random.default_rng(7)
     tris = rng.uniform(-1, 1, (2000, 3, 3)).astype(np.float32)
@@ -372,8 +371,8 @@ def test_membership_certificate_hier_grouped():
     covered == (ray's global hit clusters subset of kept global ids) for
     non-SC-overflow blocks, and False everywhere a block's SC list
     truncated (those rays may be missing whole superclusters)."""
-    from sycl_ray_tracing_tpu.ops import cluster as C
-    from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
+    from sycl_ray_tracing.ops import cluster as C
+    from sycl_ray_tracing.utils.procedural import dragon_standin
 
     tris = dragon_standin(60_000)
     cs = C.build_clusters(tris)

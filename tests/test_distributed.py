@@ -61,16 +61,16 @@ def test_two_process_render_matches_single_process(tmp_path):
     import jax
     from jax.sharding import Mesh
 
-    from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-    from sycl_ray_tracing_tpu.parallel.render import render_sharded
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
-    from sycl_ray_tracing_tpu.utils.obj_loader import load_scene
+    from sycl_ray_tracing.models.camera import cornell_box_camera
+    from sycl_ray_tracing.parallel.render import render_sharded
+    from sycl_ray_tracing.utils.config import RenderConfig
+    from sycl_ray_tracing.utils.obj_loader import load_scene
 
     mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2),
                 ("data", "sample"))
     cfg = RenderConfig(width=W, height=H, samples=4, bounces=3,
                        intersect="brute")
-    scene = load_scene("/root/reference/data/OBJs/cornell_pbr.obj")
+    scene = load_scene(os.path.join(REPO, "data", "cornell_box.obj"))
     want = np.asarray(
         render_sharded(scene, cornell_box_camera(), cfg,
                        jax.random.PRNGKey(3), mesh)

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sycl_ray_tracing_tpu.ops import envmap
+from sycl_ray_tracing.ops import envmap
 
 
 def test_eval_direction_picks_expected_texel(test_env_map):
@@ -89,7 +89,7 @@ def test_two_level_inversion_bit_identical_to_dense():
     zero-luminance runs (duplicate cdf values across block boundaries)."""
     import numpy as np
 
-    from sycl_ray_tracing_tpu.ops import envmap
+    from sycl_ray_tracing.ops import envmap
 
     rng = np.random.default_rng(3)
     h, w = 16, 96  # not a multiple of COL_BLK=32? 96 = 3 blocks exactly;
@@ -131,7 +131,7 @@ def test_two_level_inversion_odd_width():
     counts must still match the dense inversion."""
     import numpy as np
 
-    from sycl_ray_tracing_tpu.ops import envmap
+    from sycl_ray_tracing.ops import envmap
 
     rng = np.random.default_rng(7)
     h, w = 8, 45  # 45 = 1 full block + 13-wide padded tail

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sycl_ray_tracing_tpu.models import pathtracer
-from sycl_ray_tracing_tpu.models.camera import Camera, cornell_box_camera
-from sycl_ray_tracing_tpu.ops import transform as T
-from sycl_ray_tracing_tpu.utils.config import RenderConfig
+from sycl_ray_tracing.models import pathtracer
+from sycl_ray_tracing.models.camera import Camera, cornell_box_camera
+from sycl_ray_tracing.ops import transform as T
+from sycl_ray_tracing.utils.config import RenderConfig
 
 CFG = RenderConfig(width=12, height=12, samples=4, bounces=2)
 
@@ -140,8 +140,8 @@ def test_grad_through_accel_backends(cornell_scene, key, backend):
     gradient takes and needs its own FD pin."""
     import numpy as np_
 
-    from sycl_ray_tracing_tpu.ops.bvh import build_bvh
-    from sycl_ray_tracing_tpu.ops.cluster import build_clusters
+    from sycl_ray_tracing.ops.bvh import build_bvh
+    from sycl_ray_tracing.ops.cluster import build_clusters
 
     tris = np_.asarray(cornell_scene.triangles)
     scene = cornell_scene
@@ -179,8 +179,8 @@ def test_backends_agree_forward(cornell_scene, key):
     seeds (they differ only in how the closest hit is found)."""
     import numpy as np_
 
-    from sycl_ray_tracing_tpu.ops.bvh import build_bvh
-    from sycl_ray_tracing_tpu.ops.cluster import build_clusters
+    from sycl_ray_tracing.ops.bvh import build_bvh
+    from sycl_ray_tracing.ops.cluster import build_clusters
 
     tris = np_.asarray(cornell_scene.triangles)
     nrays = CFG.width * CFG.height
@@ -209,7 +209,7 @@ def _render_mean_backend(scene, cam, key, backend):
     )
     # remat=False: the checkpoint-wrapped interpret-mode Pallas program
     # segfaults the XLA CPU compiler when compiled late in a long test
-    # process (upstream compiler bug; TPU compiles are remote and fine).
+    # process (upstream compiler bug; GPU compiles are unaffected).
     # Replay-backward correctness has its own dedicated test below.
     return pathtracer.render_rays(
         scene, cam, xs.reshape(-1), ys.reshape(-1), W, H, key,
@@ -268,7 +268,7 @@ def test_list_backend_agrees_with_env_map(cornell_scene, test_env_map, key):
     continuation + light shadow + env shadow) matches brute exactly."""
     import numpy as np_
 
-    from sycl_ray_tracing_tpu.ops.cluster import build_clusters
+    from sycl_ray_tracing.ops.cluster import build_clusters
 
     tris = np_.asarray(cornell_scene.triangles)
     nrays = CFG.width * CFG.height
@@ -294,9 +294,9 @@ def test_remat_off_matches_remat_on(cornell_scene):
     import jax.numpy as jnp
     import numpy as np
 
-    from sycl_ray_tracing_tpu.models import pathtracer
-    from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
+    from sycl_ray_tracing.models import pathtracer
+    from sycl_ray_tracing.models.camera import cornell_box_camera
+    from sycl_ray_tracing.utils.config import RenderConfig
 
     cam = cornell_box_camera()
     key = jax.random.PRNGKey(13)
@@ -320,26 +320,3 @@ def test_remat_off_matches_remat_on(cornell_scene):
     v0, g0 = run(False)
     np.testing.assert_allclose(v0, v1, rtol=1e-6)
     np.testing.assert_allclose(g0, g1, rtol=1e-4, atol=1e-8)
-
-
-def test_permute_rows_gather_only_vjp():
-    """The compaction permute's custom VJP must equal the true
-    permutation adjoint (inverse-permutation gather)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from sycl_ray_tracing_tpu.models.pathtracer import _permute_rows
-
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.random((64, 5)), jnp.float32)
-    perm = jnp.asarray(rng.permutation(64), jnp.int32)
-    inv = jnp.argsort(perm)
-    y, vjp = jax.vjp(lambda x: _permute_rows(x, perm, inv), x)
-    np.testing.assert_array_equal(np.asarray(y), np.asarray(x)[perm])
-    ct = jnp.asarray(rng.random((64, 5)), jnp.float32)
-    (gx,) = vjp(ct)
-    # adjoint of y = x[perm] is gx[perm[i]] = ct[i]
-    expect = np.zeros((64, 5), np.float32)
-    expect[np.asarray(perm)] = np.asarray(ct)
-    np.testing.assert_allclose(np.asarray(gx), expect)

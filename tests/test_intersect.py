@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sycl_ray_tracing_tpu.ops.intersect import (
+from sycl_ray_tracing.ops.intersect import (
     BIG_T,
     intersect_spheres,
     intersect_triangles,

@@ -3,33 +3,33 @@
 import numpy as np
 
 from tests.conftest import CORNELL_OBJ
-from sycl_ray_tracing_tpu.utils.hdr import read_hdr, write_hdr
-from sycl_ray_tracing_tpu.utils.obj_loader import parse_obj
-from sycl_ray_tracing_tpu.utils.png import read_png, write_png
+from sycl_ray_tracing.utils.hdr import read_hdr, write_hdr
+from sycl_ray_tracing.utils.obj_loader import parse_obj
+from sycl_ray_tracing.utils.png import read_png, write_png
 
 
 def test_cornell_parse_counts():
     parsed = parse_obj(CORNELL_OBJ)
-    # cornell_pbr: 16 quads = 32 triangles; 8 MTL materials + debug row
+    # cornell_box: 16 quads = 32 triangles; 8 MTL materials + debug row
     assert parsed.triangles.shape == (32, 3, 3)
     assert parsed.emission.shape[0] == 9
     assert parsed.material_indices.min() >= 1  # every face has a material
-    # the light quad (Ke=100) = 2 triangles
+    # the light quad (Ke=50) = 2 triangles
     assert parsed.emissive_indices.shape[0] == 2
     np.testing.assert_allclose(
         parsed.emission[parsed.material_indices[parsed.emissive_indices[0]]],
-        [100.0, 100.0, 100.0],
+        [50.0, 50.0, 50.0],
     )
 
 
 def test_cornell_material_values():
     parsed = parse_obj(CORNELL_OBJ)
     by_name = {n: i for i, n in enumerate(parsed.material_names)}
-    left = by_name["leftWall.001"]
+    left = by_name["leftWall"]
     np.testing.assert_allclose(parsed.diffuse[left], [0.63, 0.065, 0.05])
     # leftWall has Pr 0.0 -> clamped to 1e-2 (utils.cpp:82)
     assert abs(parsed.roughness[left] - 1e-2) < 1e-9
-    short_box = by_name["shortBox.001"]
+    short_box = by_name["shortBox"]
     assert parsed.metalness[short_box] == 1.0
     # debug material row 0: magenta emission (utils.cpp:75)
     np.testing.assert_allclose(parsed.emission[0], [1.0, 0.0, 1.0])
@@ -37,8 +37,7 @@ def test_cornell_material_values():
 
 def test_obj_vertex_values():
     parsed = parse_obj(CORNELL_OBJ)
-    # first face of cornell.001 references v1..v4 region; check a known vertex
-    # appears among triangle vertices: (0.53, 0.6, 0.75)
+    # a corner of the short box's top face: (0.53, 0.6, 0.75)
     verts = parsed.triangles.reshape(-1, 3)
     d = np.abs(verts - np.array([0.53, 0.6, 0.75])).sum(axis=1)
     assert d.min() < 1e-6
@@ -87,7 +86,7 @@ def test_png_flip(tmp_path):
 
 
 def test_bmp_writer(tmp_path):
-    from sycl_ray_tracing_tpu.utils.png import write_bmp
+    from sycl_ray_tracing.utils.png import write_bmp
 
     rng = np.random.default_rng(2)
     img = rng.uniform(0, 1, (7, 5, 3)).astype(np.float32)
@@ -109,8 +108,8 @@ def test_bmp_writer(tmp_path):
 
 def test_read_png_roundtrip(tmp_path):
     """Our PNG reader decodes our PNG writer's output byte-exactly."""
-    from sycl_ray_tracing_tpu.utils.image_io import read_png
-    from sycl_ray_tracing_tpu.utils.png import write_png
+    from sycl_ray_tracing.utils.image_io import read_png
+    from sycl_ray_tracing.utils.png import write_png
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 256, (33, 47, 3), dtype=np.uint8)
@@ -121,8 +120,8 @@ def test_read_png_roundtrip(tmp_path):
 
 
 def test_read_bmp_roundtrip(tmp_path):
-    from sycl_ray_tracing_tpu.utils.image_io import read_bmp
-    from sycl_ray_tracing_tpu.utils.png import write_bmp
+    from sycl_ray_tracing.utils.image_io import read_bmp
+    from sycl_ray_tracing.utils.png import write_bmp
 
     rng = np.random.default_rng(6)
     img = rng.integers(0, 256, (21, 13, 3), dtype=np.uint8)
@@ -135,8 +134,8 @@ def test_read_bmp_roundtrip(tmp_path):
 def test_read_image_float_ldr_semantics(tmp_path):
     """LDR decode is /255 with NO gamma change (image_io.cpp:96-126 —
     the reference leaves linearization as a TODO and ships without it)."""
-    from sycl_ray_tracing_tpu.utils.image_io import read_image_float
-    from sycl_ray_tracing_tpu.utils.png import write_png
+    from sycl_ray_tracing.utils.image_io import read_image_float
+    from sycl_ray_tracing.utils.png import write_png
 
     img = np.array([[[0, 128, 255]]], dtype=np.uint8)
     p = tmp_path / "t.png"
@@ -146,8 +145,8 @@ def test_read_image_float_ldr_semantics(tmp_path):
 
 
 def test_read_image_float_hdr_dispatch(tmp_path):
-    from sycl_ray_tracing_tpu.utils.hdr import write_hdr
-    from sycl_ray_tracing_tpu.utils.image_io import read_image_float
+    from sycl_ray_tracing.utils.hdr import write_hdr
+    from sycl_ray_tracing.utils.image_io import read_image_float
 
     rng = np.random.default_rng(7)
     img = (rng.uniform(0, 4, (16, 24, 3))).astype(np.float32)
@@ -162,7 +161,7 @@ def test_read_image_float_hdr_dispatch(tmp_path):
 def test_old_style_rle_hdr(tmp_path):
     """Hand-built old-style RLE scanlines (stb semantics: (1,1,1,n)
     repeats the previous pixel, consecutive markers shift the count)."""
-    from sycl_ray_tracing_tpu.utils.hdr import _rgbe_to_float, read_hdr
+    from sycl_ray_tracing.utils.hdr import _rgbe_to_float, read_hdr
 
     w, h = 12, 2
     # rows of pixels: first pixel literal, then a (1,1,1,11) run marker

@@ -4,7 +4,7 @@ Builds the reference renderer (g++ -fopenmp, OIDN stubbed with an identity
 filter — refbuild/stub/) around a parity driver (refbuild/main_parity.cpp)
 that renders with a selectable camera and a constant gray env map (a
 black sky NaNs the reference's env-CDF sampling), and dumps the RAW
-linear float framebuffer.  The TPU-side render of the same scene at
+linear float framebuffer.  This framework's render of the same scene at
 the same sample count must agree statistically: both are unbiased MC
 estimators of the same integral, so 8x8-block box-downsampled images
 (effective spp x 64 samples per block) must match within a few percent.
@@ -80,10 +80,10 @@ def test_cornell_matches_reference_binary(tmp_path):
 
     import jax
 
-    from sycl_ray_tracing_tpu.models import pathtracer
-    from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
-    from sycl_ray_tracing_tpu.utils.obj_loader import load_scene
+    from sycl_ray_tracing.models import pathtracer
+    from sycl_ray_tracing.models.camera import cornell_box_camera
+    from sycl_ray_tracing.utils.config import RenderConfig
+    from sycl_ray_tracing.utils.obj_loader import load_scene
 
     # ggx_sampler="reference" replicates the reference's biased sampler
     # (missing sqrt, render_kernel.cpp:404) so the comparison is
@@ -130,8 +130,8 @@ def test_env_map_matches_reference_binary(tmp_path):
     if not _build_binary():
         pytest.skip("g++ or reference sources unavailable")
 
-    from sycl_ray_tracing_tpu.utils.hdr import write_hdr
-    from sycl_ray_tracing_tpu.utils.procedural import procedural_sky
+    from sycl_ray_tracing.utils.hdr import write_hdr
+    from sycl_ray_tracing.utils.procedural import procedural_sky
 
     w = h = 64
     spp, bounces = 8, 4
@@ -154,12 +154,12 @@ def test_env_map_matches_reference_binary(tmp_path):
 
     import jax
 
-    from sycl_ray_tracing_tpu.models import pathtracer
-    from sycl_ray_tracing_tpu.models.camera import cornell_box_camera
-    from sycl_ray_tracing_tpu.ops.bvh import build_bvh
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
-    from sycl_ray_tracing_tpu.utils.image_io import read_image_float
-    from sycl_ray_tracing_tpu.utils.obj_loader import load_scene
+    from sycl_ray_tracing.models import pathtracer
+    from sycl_ray_tracing.models.camera import cornell_box_camera
+    from sycl_ray_tracing.ops.bvh import build_bvh
+    from sycl_ray_tracing.utils.config import RenderConfig
+    from sycl_ray_tracing.utils.image_io import read_image_float
+    from sycl_ray_tracing.utils.obj_loader import load_scene
 
     env = read_image_float(sky_path, flip_y=True)  # mirrors main.py/main.cpp
     scene = load_scene("/root/reference/data/OBJs/MIS.obj",

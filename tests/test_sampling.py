@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sycl_ray_tracing_tpu.ops.sampling import (
+from sycl_ray_tracing.ops.sampling import (
     branchless_onb,
     cosine_hemisphere,
     power_heuristic,

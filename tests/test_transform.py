@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from sycl_ray_tracing_tpu.ops import transform as T
+from sycl_ray_tracing.ops import transform as T
 
 
 def test_identity_apply():
@@ -113,7 +113,7 @@ def test_scale():
 
 
 def test_sphere_helper_lights_scene():
-    from sycl_ray_tracing_tpu.models.scene import add_sphere, make_materials, make_scene
+    from sycl_ray_tracing.models.scene import add_sphere, make_materials, make_scene
 
     tris = np.array([[[-1, 0, -1], [1, 0, 1], [1, 0, -1]]], np.float32)
     mats = make_materials([(1, 0, 1)], [(0, 0, 0)], [0.0], [1.0])

@@ -13,6 +13,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -39,16 +40,19 @@ def main(argv=None) -> int:
     import numpy as np
     import optax
 
-    from sycl_ray_tracing_tpu.models import pathtracer
-    from sycl_ray_tracing_tpu.models.camera import PRESETS
-    from sycl_ray_tracing_tpu.parallel.mesh import best_sample_axis, make_mesh
-    from sycl_ray_tracing_tpu.parallel.render import make_train_step
-    from sycl_ray_tracing_tpu.utils.config import RenderConfig
-    from sycl_ray_tracing_tpu.utils.obj_loader import load_scene
+    from sycl_ray_tracing.models import pathtracer
+    from sycl_ray_tracing.models.camera import PRESETS
+    from sycl_ray_tracing.parallel.mesh import best_sample_axis, make_mesh
+    from sycl_ray_tracing.parallel.render import make_train_step
+    from sycl_ray_tracing.utils.compile_cache import enable_compile_cache
+    from sycl_ray_tracing.utils.config import RenderConfig
+    from sycl_ray_tracing.utils.obj_loader import load_scene
 
+    enable_compile_cache()
     config = RenderConfig(width=W, height=H, samples=spp, bounces=2,
                           tile_rays=None)
-    scene = load_scene("/root/reference/data/OBJs/cornell_pbr.obj")
+    scene = load_scene(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "data", "cornell_box.obj"))
     camera = PRESETS[scene_name if scene_name in PRESETS else "cornell"]()
 
     n_dev = len(jax.devices())
